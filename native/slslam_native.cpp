@@ -1,7 +1,7 @@
-// slslam-tpu native runtime components.
+// slslam native runtime components.
 //
 // The host-side runtime pieces that the reference implements in C++ and
-// that sit off the TPU compute path: the observation-file loader
+// that sit off the device compute path: the observation-file loader
 // (reference: SLAM::grab_new_frame, src/slam.cpp:62-108) and the
 // metric-embedding graph walk (SLAM::metric_embedding,
 // src/slam.cpp:1317-1366).  Exposed as a C ABI for ctypes; NumPy arrays are

@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from slslam_tpu import geometry as geo
-from slslam_tpu.config import CameraConfig
-from slslam_tpu.hostgeom import Pose
-from slslam_tpu.ops.residuals import lba_residual, score_error
-from slslam_tpu.ops.schur_ba import local_ba
-from slslam_tpu.sim import StereoLineRenderer, house_segments, wave_trajectory
+from slslam import geometry as geo
+from slslam.config import CameraConfig
+from slslam.hostgeom import Pose
+from slslam.ops.residuals import lba_residual, score_error
+from slslam.ops.schur_ba import local_ba
+from slslam.sim import StereoLineRenderer, house_segments, wave_trajectory
 
 CAM = CameraConfig()
 BL = CAM.baseline
@@ -23,8 +23,8 @@ def _engine_avg_iters(line_param, frames_n=80):
     if line_param in _ENGINE_ITERS_CACHE:
         return _ENGINE_ITERS_CACHE[line_param]
     import dataclasses
-    from slslam_tpu.config import SlamConfig
-    from slslam_tpu.engine.batch import BatchSlam
+    from slslam.config import SlamConfig
+    from slslam.engine.batch import BatchSlam
 
     cfg = dataclasses.replace(SlamConfig(), compute_dtype="float64",
                               kf_rot_thr=1e-9, kf_tr_thr=1e-9,
@@ -204,7 +204,7 @@ class TestLocalBA:
         # the dense solver's pose-prior edges (r5, built for the
         # deferred-LC joint confirms) must agree with the CG path's
         # established prior_edges implementation on the same problem
-        from slslam_tpu.ops.schur_cg import global_ba_cg, pack_line_major
+        from slslam.ops.schur_cg import global_ba_cg, pack_line_major
 
         cam_wt, gt_lines, obs, obs_cam, obs_line, _ = make_problem(
             num_cams=4, noise_px=0.3, seed=6)

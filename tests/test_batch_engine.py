@@ -10,10 +10,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine import Slam
-from slslam_tpu.engine.batch import BatchSlam, pack_frames
-from slslam_tpu.sim import StereoLineRenderer, house_segments, wave_trajectory
+from slslam.config import SlamConfig
+from slslam.engine import Slam
+from slslam.engine.batch import BatchSlam, pack_frames
+from slslam.sim import StereoLineRenderer, house_segments, wave_trajectory
 
 
 def _house_frames(n, noise=0.2, seed=4, cfg=None):

@@ -1,10 +1,9 @@
 """Loop closure on the device-resident path (engine/batch_lc.py).
 
-The round-1 gap (VERDICT #1): the TPU-fast replay path could not close
-loops.  These tests drive the full deferred pipeline — batch replay ->
-voctree recognition -> device relative-pose -> pose-graph stitch ->
-merged global refine — on the village world, plus unit coverage of the
-stitch and edge-gating stages.
+The batch replay path alone cannot close loops.  These tests drive the
+full deferred pipeline — batch replay -> voctree recognition -> device
+relative-pose -> pose-graph stitch -> merged global refine — on the
+village world, plus unit coverage of the stitch and edge-gating stages.
 """
 
 import dataclasses
@@ -12,15 +11,15 @@ import dataclasses
 import numpy as np
 import pytest
 
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine.batch import BatchResult
-from slslam_tpu.engine.batch_lc import (BatchSlamLC, _pose_graph_stitch)
-from slslam_tpu.hostgeom import Pose
-from slslam_tpu.loopclosure import PlaceRecognizer, VocTree, build_vocabulary
-from slslam_tpu.loopclosure.voctree import VocTreeParams
-from slslam_tpu.sim import (SegmentDescriptorSource, StereoLineRenderer,
-                            TrackIdAssigner, village_segments,
-                            village_trajectory)
+from slslam.config import SlamConfig
+from slslam.engine.batch import BatchResult
+from slslam.engine.batch_lc import (BatchSlamLC, _pose_graph_stitch)
+from slslam.hostgeom import Pose
+from slslam.loopclosure import PlaceRecognizer, VocTree, build_vocabulary
+from slslam.loopclosure.voctree import VocTreeParams
+from slslam.sim import (SegmentDescriptorSource, StereoLineRenderer,
+                        TrackIdAssigner, village_segments,
+                        village_trajectory)
 
 
 def _ate(traj, gt):
@@ -92,8 +91,8 @@ class TestPoseGraphStitch:
 def test_village_batch_lc_end_to_end(seed):
     """Deferred LC on the batch path: >=1 accepted closure, all merges
     map to the true world segment, and the final trajectory beats the
-    odometry-only replay (VERDICT r1 item 1 'done' criteria, accuracy
-    side; throughput is measured by bench.py on the real chip)."""
+    odometry-only replay (accuracy only; speed is measured by bench.py
+    and chip_smoke.py on a GPU)."""
     cfg = dataclasses.replace(SlamConfig(), compute_dtype="float64")
     segs = village_segments(n_houses=6, ring_radius=9.0)
     poses_gt = village_trajectory(num_frames=170, arc=2.7 * np.pi,

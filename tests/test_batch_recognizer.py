@@ -9,10 +9,10 @@ decision on the same descriptor stream.
 import numpy as np
 import pytest
 
-from slslam_tpu.loopclosure import VocTree, build_vocabulary
-from slslam_tpu.loopclosure.batch import (BatchPlaceRecognizer,
-                                          recognize_sequence)
-from slslam_tpu.loopclosure.voctree import VocTreeParams
+from slslam.loopclosure import VocTree, build_vocabulary
+from slslam.loopclosure.batch import (BatchPlaceRecognizer,
+                                      recognize_sequence)
+from slslam.loopclosure.voctree import VocTreeParams
 
 
 def _make_stream(K=60, revisit_at=45, n_places=40, feats_per=24, seed=0,

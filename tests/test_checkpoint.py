@@ -4,11 +4,11 @@ import dataclasses
 
 import numpy as np
 
-from slslam_tpu.checkpoint import load_checkpoint, save_checkpoint
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine import Slam
-from slslam_tpu.evalio.writers import trajectory_rows
-from slslam_tpu.sim import StereoLineRenderer, house_segments, wave_trajectory
+from slslam.checkpoint import load_checkpoint, save_checkpoint
+from slslam.config import SlamConfig
+from slslam.engine import Slam
+from slslam.evalio.writers import trajectory_rows
+from slslam.sim import StereoLineRenderer, house_segments, wave_trajectory
 
 
 def test_save_load_resume(tmp_path):

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from slslam_tpu import geometry as geo
-from slslam_tpu.config import CameraConfig
-from slslam_tpu.ops.pose_graph import pose_graph_opt
-from slslam_tpu.ops.schur_ba import local_ba
-from slslam_tpu.parallel import (dist_local_ba_lines, dist_pose_graph_opt,
-                                 make_mesh, partition_by_line)
+from slslam import geometry as geo
+from slslam.config import CameraConfig
+from slslam.ops.pose_graph import pose_graph_opt
+from slslam.ops.schur_ba import local_ba
+from slslam.parallel import (dist_local_ba_lines, dist_pose_graph_opt,
+                             make_mesh, partition_by_line)
 
 from test_ba import make_problem
 
@@ -179,8 +179,8 @@ class TestPGO:
 
 class TestDistBALines:
     def test_line_sharded_matches_single(self, mesh):
-        from slslam_tpu.parallel.dist_ba import (dist_local_ba_lines,
-                                                 partition_by_line)
+        from slslam.parallel.dist_ba import (dist_local_ba_lines,
+                                             partition_by_line)
         args = padded_ba_problem()
         (cam0, orth0, obs_p, oc, ol, valid, cam_free, line_free) = args
         cam_s, line_s, stats_s = local_ba(*args, BL, 1.0 / CAM.focal_length)
@@ -206,11 +206,11 @@ class TestDistBALines:
 class TestEngineDistributed:
     def test_engine_with_mesh_matches_single(self):
         import dataclasses
-        from slslam_tpu.config import SlamConfig
-        from slslam_tpu.engine import Slam
-        from slslam_tpu.evalio.writers import trajectory_rows
-        from slslam_tpu.sim import (StereoLineRenderer, house_segments,
-                                    wave_trajectory)
+        from slslam.config import SlamConfig
+        from slslam.engine import Slam
+        from slslam.evalio.writers import trajectory_rows
+        from slslam.sim import (StereoLineRenderer, house_segments,
+                                wave_trajectory)
 
         # 14 frames: enough for the window to cycle and the sharded
         # BA/PGO paths to execute; the dominant cost is the shard_map

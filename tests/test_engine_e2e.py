@@ -1,6 +1,6 @@
 """End-to-end engine test on the synthetic house world.
 
-The TPU-native analog of the reference authors' simulation validation
+The analog of the reference authors' simulation validation
 (SURVEY.md §4): replay rendered stereo line tracks through the full
 pipeline (VO -> keyframes -> triangulation -> windowed BA) and check the
 estimated trajectory against ground truth with the calc_traj_err metric.
@@ -11,12 +11,12 @@ import dataclasses
 import numpy as np
 import pytest
 
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine import Slam
-from slslam_tpu.evalio.traj import ate_position_error
-from slslam_tpu.evalio.writers import trajectory_rows
-from slslam_tpu.hostgeom import Pose
-from slslam_tpu.sim import StereoLineRenderer, house_segments, wave_trajectory
+from slslam.config import SlamConfig
+from slslam.engine import Slam
+from slslam.evalio.traj import ate_position_error
+from slslam.evalio.writers import trajectory_rows
+from slslam.hostgeom import Pose
+from slslam.sim import StereoLineRenderer, house_segments, wave_trajectory
 
 
 def run_sim(num_frames=100, noise_px=0.3, seed=1, **cfg_overrides):

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from slslam_tpu.config import CameraConfig
-from slslam_tpu.frontend.detector import (LineSegmentDetector,
-                                          merge_collinear_segments)
-from slslam_tpu.frontend.io import ObsFileLoader, parse_obs_file
-from slslam_tpu.frontend.matcher import StereoLineMatcher
-from slslam_tpu.sim import house_segments, wave_trajectory
-from slslam_tpu.sim.images import StereoImageRenderer, draw_segments
+from slslam.config import CameraConfig
+from slslam.frontend.detector import (LineSegmentDetector,
+                                      merge_collinear_segments)
+from slslam.frontend.io import ObsFileLoader, parse_obs_file
+from slslam.frontend.matcher import StereoLineMatcher
+from slslam.sim import house_segments, wave_trajectory
+from slslam.sim.images import StereoImageRenderer, draw_segments
 
 CAM = CameraConfig()
 
@@ -139,12 +139,12 @@ def test_image_pipeline_end_to_end_ba_grade():
     tracks anywhere."""
     import dataclasses
 
-    from slslam_tpu.config import SlamConfig
-    from slslam_tpu.engine.batch import BatchSlam, normalize_frames
-    from slslam_tpu.engine.refine import global_refine
-    from slslam_tpu.frontend.matcher import StereoLineMatcher
-    from slslam_tpu.sim import house_segments, wave_trajectory
-    from slslam_tpu.sim.images import StereoImageRenderer
+    from slslam.config import SlamConfig
+    from slslam.engine.batch import BatchSlam, normalize_frames
+    from slslam.engine.refine import global_refine
+    from slslam.frontend.matcher import StereoLineMatcher
+    from slslam.sim import house_segments, wave_trajectory
+    from slslam.sim.images import StereoImageRenderer
 
     cfg = dataclasses.replace(SlamConfig(), compute_dtype="float64",
                               kf_rot_thr=1e-9, kf_tr_thr=1e-9)

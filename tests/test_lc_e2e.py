@@ -14,15 +14,15 @@ import os
 import numpy as np
 import pytest
 
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine import Slam
-from slslam_tpu.evalio.traj import ate_position_error
-from slslam_tpu.evalio.writers import trajectory_rows
-from slslam_tpu.loopclosure import PlaceRecognizer, VocTree, build_vocabulary
-from slslam_tpu.loopclosure.voctree import DESC_DIM, VocTreeParams
-from slslam_tpu.sim import (SegmentDescriptorSource, StereoLineRenderer,
-                            TrackIdAssigner, village_segments,
-                            village_trajectory)
+from slslam.config import SlamConfig
+from slslam.engine import Slam
+from slslam.evalio.traj import ate_position_error
+from slslam.evalio.writers import trajectory_rows
+from slslam.loopclosure import PlaceRecognizer, VocTree, build_vocabulary
+from slslam.loopclosure.voctree import DESC_DIM, VocTreeParams
+from slslam.sim import (SegmentDescriptorSource, StereoLineRenderer,
+                        TrackIdAssigner, village_segments,
+                        village_trajectory)
 
 slow = pytest.mark.skipif(not os.environ.get("SLSLAM_SLOW_TESTS"),
                           reason="set SLSLAM_SLOW_TESTS=1 to run")

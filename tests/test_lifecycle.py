@@ -11,9 +11,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine import Slam
-from slslam_tpu.sim import StereoLineRenderer, house_segments, wave_trajectory
+from slslam.config import SlamConfig
+from slslam.engine import Slam
+from slslam.sim import StereoLineRenderer, house_segments, wave_trajectory
 
 _ONESHOT_BASE = 900000   # synthetic feature ids observed exactly once
 
@@ -75,7 +75,7 @@ def test_gc_deletes_member_singletons(runs):
     directly here.
     """
     import copy
-    from slslam_tpu.engine.state import Landmark
+    from slslam.engine.state import Landmark
 
     _, src = runs
     slam = copy.deepcopy(src)

@@ -5,9 +5,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from slslam_tpu.loopclosure import PlaceRecognizer, VocTree, build_vocabulary
-from slslam_tpu.loopclosure.voctree import (BRANCH_FACTOR, DESC_DIM,
-                                            VocTreeParams)
+from slslam.loopclosure import PlaceRecognizer, VocTree, build_vocabulary
+from slslam.loopclosure.voctree import (BRANCH_FACTOR, DESC_DIM,
+                                        VocTreeParams)
 
 
 def synth_descriptors(rng, n):

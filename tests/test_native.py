@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from slslam_tpu import native
-from slslam_tpu.engine.embedding import _python_embedding, metric_embedding
-from slslam_tpu.engine.state import Edge, Keyframe, MapState
-from slslam_tpu.hostgeom import Pose, rodrigues
+from slslam import native
+from slslam.engine.embedding import _python_embedding, metric_embedding
+from slslam.engine.state import Edge, Keyframe, MapState
+from slslam.hostgeom import Pose, rodrigues
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="native library not built")

@@ -11,9 +11,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.sim.street import (OutlierInjector, SEQUENCES,
-                                   load_reference_poses, real_proxy_workload)
+from slslam.config import SlamConfig
+from slslam.sim.street import (OutlierInjector, SEQUENCES,
+                               load_reference_poses, real_proxy_workload)
 
 REF_DIR = "/root/reference/matlab_script"
 
@@ -31,7 +31,7 @@ def _ate(traj, poses_gt):
 
 def test_loader_matches_writer_roundtrip(tmp_path):
     """load_reference_poses inverts evalio.writers.write_trajectory."""
-    from slslam_tpu.evalio.writers import write_trajectory
+    from slslam.evalio.writers import write_trajectory
 
     poses_wc = load_reference_poses(
         f"{REF_DIR}/traj_slslam_itbt3f_basize10_wolc.txt")
@@ -80,7 +80,7 @@ def test_full_pipeline_on_itbt3f_slice_with_outliers():
     (kf_count 24/48, the r3 regression this test now guards): the
     recovery path (SlamConfig.vo_fail_recovery) must carry tracking
     through, and accuracy must stay bounded on the covered section."""
-    from slslam_tpu.engine.batch import BatchSlam
+    from slslam.engine.batch import BatchSlam
 
     frames, poses_gt, segs, stats = real_proxy_workload(
         "itbt3f", max_frames=48, noise_px=0.5, outlier_frac=0.05)

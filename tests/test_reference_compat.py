@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from slslam_tpu.evalio.traj import (ate_matlab_literal, ate_position_error,
-                                    load_trajectory)
-from slslam_tpu.evalio.writers import trajectory_rows, write_trajectory
-from slslam_tpu.hostgeom import Pose, rodrigues
+from slslam.evalio.traj import (ate_matlab_literal, ate_position_error,
+                                load_trajectory)
+from slslam.evalio.writers import trajectory_rows, write_trajectory
+from slslam.hostgeom import Pose, rodrigues
 
 REF = "/root/reference/matlab_script"
 

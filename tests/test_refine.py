@@ -2,7 +2,7 @@
 
 The reference only ever optimizes a sliding 2W window
 (/root/reference/src/slam.cpp:1374-1382); a whole-map BA is a capability
-the TPU build adds on top.  These tests check that the global solve (a)
+this build adds on top.  These tests check that the global solve (a)
 reduces the total reprojection cost, (b) improves (or at worst preserves)
 ATE against ground truth on the house replay, and (c) keeps the gauge at
 keyframe 0.
@@ -13,10 +13,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine.batch import BatchSlam
-from slslam_tpu.engine.refine import build_global_problem, global_refine
-from slslam_tpu.sim import StereoLineRenderer, house_segments, wave_trajectory
+from slslam.config import SlamConfig
+from slslam.engine.batch import BatchSlam
+from slslam.engine.refine import build_global_problem, global_refine
+from slslam.sim import StereoLineRenderer, house_segments, wave_trajectory
 
 
 @pytest.fixture(scope="module")
@@ -113,7 +113,7 @@ class TestRefineSafety:
     and stays off where long-range tracks pin those modes themselves."""
 
     def test_band_detection_house_vs_village(self, replay, cfg):
-        from slslam_tpu.engine.refine import detect_band_visibility
+        from slslam.engine.refine import detect_band_visibility
         frames, _, res = replay
         band, frac = detect_band_visibility(frames, res.is_kf)
         assert not band and frac > 0.5, (band, frac)  # house: long tracks
@@ -150,11 +150,11 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import numpy as np
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine.batch import BatchSlam
-from slslam_tpu.engine.refine import detect_band_visibility, global_refine
-from slslam_tpu.sim import (StereoLineRenderer, village_segments,
-                            village_trajectory)
+from slslam.config import SlamConfig
+from slslam.engine.batch import BatchSlam
+from slslam.engine.refine import detect_band_visibility, global_refine
+from slslam.sim import (StereoLineRenderer, village_segments,
+                        village_trajectory)
 
 cfg = dataclasses.replace(SlamConfig(), compute_dtype="float64",
                           kf_rot_thr=1e-9, kf_tr_thr=1e-9)

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from slslam_tpu import geometry as geo
-from slslam_tpu.config import CameraConfig
-from slslam_tpu.ops.schur_ba import local_ba
-from slslam_tpu.ops.schur_cg import (global_ba_cg, pack_line_major)
+from slslam import geometry as geo
+from slslam.config import CameraConfig
+from slslam.ops.schur_ba import local_ba
+from slslam.ops.schur_cg import (global_ba_cg, pack_line_major)
 
 from test_ba import make_problem
 

@@ -5,8 +5,8 @@ import re
 
 import numpy as np
 
-from slslam_tpu.hostgeom import Pose, rodrigues
-from slslam_tpu.viz_interactive import export_interactive_map
+from slslam.hostgeom import Pose, rodrigues
+from slslam.viz_interactive import export_interactive_map
 
 
 def _toy_run(n=12, segs=5):

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from slslam_tpu import geometry as geo
-from slslam_tpu.config import CameraConfig, SlamConfig
-from slslam_tpu.hostgeom import Pose, line_from_pose
-from slslam_tpu.ops.ransac import minimal_motion, ransac_vo
-from slslam_tpu.sim import StereoLineRenderer, house_segments, wave_trajectory
+from slslam import geometry as geo
+from slslam.config import CameraConfig, SlamConfig
+from slslam.hostgeom import Pose, line_from_pose
+from slslam.ops.ransac import minimal_motion, ransac_vo
+from slslam.sim import StereoLineRenderer, house_segments, wave_trajectory
 
 CAM = CameraConfig()
 CFG = SlamConfig()

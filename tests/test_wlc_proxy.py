@@ -18,12 +18,12 @@ import os
 import numpy as np
 import pytest
 
-from slslam_tpu.config import SlamConfig
-from slslam_tpu.engine.batch_lc import BatchSlamLC
-from slslam_tpu.loopclosure import PlaceRecognizer, VocTree, build_vocabulary
-from slslam_tpu.loopclosure.voctree import VocTreeParams
-from slslam_tpu.sim.street import real_proxy_workload
-from slslam_tpu.sim.tracks import SegmentDescriptorSource, TrackIdAssigner
+from slslam.config import SlamConfig
+from slslam.engine.batch_lc import BatchSlamLC
+from slslam.loopclosure import PlaceRecognizer, VocTree, build_vocabulary
+from slslam.loopclosure.voctree import VocTreeParams
+from slslam.sim.street import real_proxy_workload
+from slslam.sim.tracks import SegmentDescriptorSource, TrackIdAssigner
 
 
 def _run_wlc(seq):

@@ -39,16 +39,16 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     else:
-        from slslam_tpu.utils.compcache import enable_persistent_cache
+        from slslam.utils.compcache import enable_persistent_cache
         enable_persistent_cache()
     platform = jax.devices()[0].platform
 
-    from slslam_tpu.config import SlamConfig
-    from slslam_tpu.engine.batch import BatchSlam, normalize_frames
-    from slslam_tpu.engine.refine import global_refine
-    from slslam_tpu.frontend.matcher import StereoLineMatcher
-    from slslam_tpu.sim import house_segments, wave_trajectory
-    from slslam_tpu.sim.images import StereoImageRenderer
+    from slslam.config import SlamConfig
+    from slslam.engine.batch import BatchSlam, normalize_frames
+    from slslam.engine.refine import global_refine
+    from slslam.frontend.matcher import StereoLineMatcher
+    from slslam.sim import house_segments, wave_trajectory
+    from slslam.sim.images import StereoImageRenderer
 
     cfg = dataclasses.replace(
         SlamConfig(),

@@ -156,7 +156,7 @@ def make_survey_problem(C=2048, lines_per_anchor=8, band_m=10.0,
 
 
 def _so3_log(R):
-    from slslam_tpu.hostgeom import so3_log
+    from slslam.hostgeom import so3_log
     return so3_log(R)
 
 
@@ -203,16 +203,10 @@ def main(argv=None):
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
-    # full-f32 MXU passes: the default TPU matmul precision truncates
-    # einsum operands to bf16, whose 8-bit mantissa turns ~250 m world
-    # coordinates into ~1 m rounding — measured as a 165x inflated
-    # cost-at-GT on the 2048-camera run (engines set this via
-    # SlamConfig.matmul_precision; this tool drives the kernels directly)
-    jax.config.update("jax_default_matmul_precision", "highest")
     import jax.numpy as jnp
 
-    from slslam_tpu import geometry as geo
-    from slslam_tpu.ops.schur_cg import global_ba_cg_impl, pack_line_major
+    from slslam import geometry as geo
+    from slslam.ops.schur_cg import global_ba_cg_impl, pack_line_major
 
     platform = jax.devices()[0].platform
     dtype = jnp.float64 if platform == "cpu" and jax.config.jax_enable_x64 \
@@ -245,7 +239,7 @@ def main(argv=None):
 
     prior_c = None
     if args.prior:
-        from slslam_tpu.hostgeom import Pose
+        from slslam.hostgeom import Pose
         chain = [Pose.from_wt(w) for w in cam0]
         prior_c = jnp.asarray(np.stack([
             (chain[i + 1] @ chain[i].inv()).wt()
@@ -272,7 +266,7 @@ def main(argv=None):
     # recovery metric here: a long survey loop observed band-locally has
     # weakly observable low-frequency bending modes, like any odometry-
     # constrained SLAM problem)
-    from slslam_tpu.ops.schur_cg import _eval_system_lm
+    from slslam.ops.schur_cg import _eval_system_lm
     orth_gt = np.asarray(geo.av_to_orth(jnp.asarray(prob["lines_w"])))
     gt_cost = float(jax.jit(
         lambda cw, lo: _eval_system_lm(
@@ -318,7 +312,7 @@ def main(argv=None):
     def rpe(cam):
         """Mean consecutive relative-translation error vs GT (the locally
         observable quantity; wraps around the loop)."""
-        from slslam_tpu.hostgeom import rodrigues
+        from slslam.hostgeom import rodrigues
         R = np.stack([rodrigues(w) for w in cam[:, :3]])
         pos = -np.einsum("cji,cj->ci", R, cam[:, 3:])        # camera centers
         Rg = np.stack([rodrigues(w) for w in prob["cam_wt"][:, :3]])

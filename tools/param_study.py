@@ -25,12 +25,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def run_one(param, err_px, basize, frames, platform):
     import numpy as np
-    from slslam_tpu.config import SlamConfig
-    from slslam_tpu.engine import Slam
-    from slslam_tpu.evalio.traj import ate_position_error
-    from slslam_tpu.evalio.writers import trajectory_rows
-    from slslam_tpu.sim import (StereoLineRenderer, house_segments,
-                                wave_trajectory)
+    from slslam.config import SlamConfig
+    from slslam.engine import Slam
+    from slslam.evalio.traj import ate_position_error
+    from slslam.evalio.writers import trajectory_rows
+    from slslam.sim import (StereoLineRenderer, house_segments,
+                            wave_trajectory)
 
     cfg = dataclasses.replace(
         SlamConfig(),

@@ -4,7 +4,7 @@ myungdong keyframe motions replayed through matched-scale synthetic worlds.
 The real datasets were never released; their committed keyframe
 trajectories (matlab_script/traj_slslam_*_basize10_wolc.txt) are replayed
 as exact ground-truth motion through corridor/street line worlds at each
-sequence's scale (slslam_tpu/sim/street.py), with realistic track churn and
+sequence's scale (slslam/sim/street.py), with realistic track churn and
 optional association outliers.  The full device-resident pipeline (batch
 replay -> windowed Schur-LM BA -> global refine) runs on each and reports
 ATE vs ground truth — the end-to-end validation the missing datasets
@@ -13,7 +13,7 @@ otherwise prevent.
 Usage:
     python tools/real_proxy.py                     # all three, CPU f64
     python tools/real_proxy.py --seq myungdong --outlier-frac 0.05
-    python tools/real_proxy.py --tpu               # run on the chip, f32
+    python tools/real_proxy.py --device            # default JAX device, f32
 Prints one JSON line per sequence.
 """
 
@@ -32,10 +32,10 @@ import numpy as np
 
 
 def run_sequence(seq, args):
-    from slslam_tpu.config import SlamConfig
-    from slslam_tpu.engine.batch import BatchSlam
-    from slslam_tpu.engine.refine import global_refine
-    from slslam_tpu.sim.street import real_proxy_workload
+    from slslam.config import SlamConfig
+    from slslam.engine.batch import BatchSlam
+    from slslam.engine.refine import global_refine
+    from slslam.sim.street import real_proxy_workload
 
     import jax
     platform = jax.devices()[0].platform
@@ -60,7 +60,7 @@ def run_sequence(seq, args):
             compute_dtype="float64" if platform == "cpu" else "float32",
             kf_rot_thr=1e-9, kf_tr_thr=1e-9, **over)
 
-    from slslam_tpu.sim.tracks import TrackIdAssigner
+    from slslam.sim.tracks import TrackIdAssigner
     assigner = TrackIdAssigner(max_gap=5)
     frames, poses_gt, segs, stats = real_proxy_workload(
         seq, max_frames=args.max_frames, noise_px=args.noise_px,
@@ -73,11 +73,11 @@ def run_sequence(seq, args):
         # wlc configuration: all three sequences return to their start
         # (closest early/late revisit 0.6-4.8 m) — the reason the
         # reference publishes wlc trajectories (BASELINE.md section 2)
-        from slslam_tpu.engine.batch_lc import BatchSlamLC
-        from slslam_tpu.loopclosure import (PlaceRecognizer, VocTree,
-                                            build_vocabulary)
-        from slslam_tpu.loopclosure.voctree import VocTreeParams
-        from slslam_tpu.sim.tracks import SegmentDescriptorSource
+        from slslam.engine.batch_lc import BatchSlamLC
+        from slslam.loopclosure import (PlaceRecognizer, VocTree,
+                                        build_vocabulary)
+        from slslam.loopclosure.voctree import VocTreeParams
+        from slslam.sim.tracks import SegmentDescriptorSource
 
         desc_src = SegmentDescriptorSource(assigner, len(segs), noise=0.01,
                                            seed=args.seed + 7)
@@ -148,7 +148,8 @@ def main(argv=None):
     ap.add_argument("--noise-px", type=float, default=0.5)
     ap.add_argument("--outlier-frac", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--device", action="store_true",
+                    help="run on the default JAX device (a GPU) in f32")
     ap.add_argument("--max-num-iter", type=int, default=0,
                     help="windowed-BA LM iteration cap (reference sweeps "
                          "10 and 1000; 0 = config default)")
@@ -164,11 +165,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import jax
-    if not args.tpu:
+    if not args.device:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 
-    from slslam_tpu.sim.street import SEQUENCES
+    from slslam.sim.street import SEQUENCES
     seqs = [args.seq] if args.seq else list(SEQUENCES)
     for seq in seqs:
         run_sequence(seq, args)

@@ -1,4 +1,4 @@
-"""1000-keyframe deferred-LC scale evidence (VERDICT r3 item 4).
+"""1000-keyframe deferred-LC scale evidence.
 
 Generates a long multi-revisit synthetic (several drifting orbits of the
 village world, so recognition keeps firing on every pass), runs the full
@@ -8,7 +8,7 @@ wall breakdown, peak device memory, and the recognition-scan cost curve
 vs timeline length K.
 
 Usage:
-    python tools/scale_lc.py                 # TPU (or whatever is default)
+    python tools/scale_lc.py                 # the default JAX device
     python tools/scale_lc.py --cpu --frames 400
 Prints one JSON line.
 """
@@ -42,28 +42,28 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     else:
-        from slslam_tpu.utils.compcache import enable_persistent_cache
+        from slslam.utils.compcache import enable_persistent_cache
         enable_persistent_cache()
     platform = jax.devices()[0].platform
 
-    from slslam_tpu.config import SlamConfig
-    from slslam_tpu.engine.batch_lc import BatchSlamLC
-    from slslam_tpu.loopclosure import VocTree, build_vocabulary
-    from slslam_tpu.loopclosure.batch import (BatchPlaceRecognizer,
-                                              recognize_sequence)
-    from slslam_tpu.loopclosure.voctree import VocTreeParams
-    from slslam_tpu.sim import (SegmentDescriptorSource, StereoLineRenderer,
-                                TrackIdAssigner, village_segments,
-                                village_trajectory)
+    from slslam.config import SlamConfig
+    from slslam.engine.batch_lc import BatchSlamLC
+    from slslam.loopclosure import VocTree, build_vocabulary
+    from slslam.loopclosure.batch import (BatchPlaceRecognizer,
+                                          recognize_sequence)
+    from slslam.loopclosure.voctree import VocTreeParams
+    from slslam.sim import (SegmentDescriptorSource, StereoLineRenderer,
+                            TrackIdAssigner, village_segments,
+                            village_trajectory)
 
     cfg = dataclasses.replace(
         SlamConfig(),
         compute_dtype="float64" if platform == "cpu" else "float32",
         kf_rot_thr=1e-9, kf_tr_thr=1e-9,
-        # workload-sized obs bucket (74 obs/frame -> 80, not 128): the
-        # replay scan is row-throughput-bound (bench.py batch mode's
-        # 80-bucket rationale); small leading entries preserved for the
-        # confirm stages' per-span problems
+        # workload-sized obs bucket (74 obs/frame -> 80, not 128: fewer
+        # padded rows per LM op; sim/workloads.py rationale); small
+        # leading entries preserved for the confirm stages' per-span
+        # problems
         obs_buckets=(64, 80, 128, 256, 512, 1024, 2048))
 
     segs = village_segments(n_houses=6, ring_radius=9.0)
